@@ -1,20 +1,20 @@
-/* C consumer of the gunrock_tpu simplified-array ABI.
+/* C consumer of the gunrock_jax simplified-array ABI.
  *
- * TPU-framework analogue of the reference's shared-library consumers
+ * JAX-framework analogue of the reference's shared-library consumers
  * (shared_lib_tests/shared_lib_bfs.c, simple_example.c): build a small
  * CSR graph in plain C arrays, run CC -> BFS -> SSSP -> PageRank
- * through the C ABI (native/gunrock_tpu.h), print and sanity-check the
+ * through the C ABI (native/gunrock_jax.h), print and sanity-check the
  * results.
  *
  * Build (tests/test_capi.py does this automatically):
  *   gcc capi_example.c -o capi_example -I../native \
- *       -L../native -lgunrock_tpu -Wl,-rpath,$PWD/../native
+ *       -L../native -lgunrock_jax -Wl,-rpath,$PWD/../native
  */
 #include <math.h>
 #include <stdio.h>
 #include <stdlib.h>
 
-#include "gunrock_tpu.h"
+#include "gunrock_jax.h"
 
 int main(void) {
   /* Two triangles bridged by one edge, plus an isolated vertex:
@@ -26,7 +26,7 @@ int main(void) {
   const int num_edges = 14;
 
   int component[7], num_components = 0;
-  float t = gunrock_tpu_cc(component, &num_components, num_nodes,
+  float t = gunrock_jax_cc(component, &num_components, num_nodes,
                            num_edges, row_offsets, col_indices);
   if (t < 0) { fprintf(stderr, "cc failed\n"); return 1; }
   printf("cc: %d components (%.2f ms):", num_components, t);
@@ -35,7 +35,7 @@ int main(void) {
   if (num_components != 2) { fprintf(stderr, "BAD cc count\n"); return 1; }
 
   int label[7], pred[7];
-  t = gunrock_tpu_bfs(label, pred, num_nodes, num_edges, row_offsets,
+  t = gunrock_jax_bfs(label, pred, num_nodes, num_edges, row_offsets,
                       col_indices, /*source=*/0,
                       /*mark_predecessors=*/true,
                       /*direction_optimized=*/false);
@@ -51,7 +51,7 @@ int main(void) {
     }
 
   float dist[7];
-  t = gunrock_tpu_sssp(dist, pred, num_nodes, num_edges, row_offsets,
+  t = gunrock_jax_sssp(dist, pred, num_nodes, num_edges, row_offsets,
                        col_indices, edge_values, /*source=*/0,
                        /*mark_preds=*/true);
   if (t < 0) { fprintf(stderr, "sssp failed\n"); return 1; }
@@ -68,7 +68,7 @@ int main(void) {
 
   int node_ids[7];
   float ranks[7];
-  t = gunrock_tpu_pagerank(node_ids, ranks, num_nodes, num_edges,
+  t = gunrock_jax_pagerank(node_ids, ranks, num_nodes, num_edges,
                            row_offsets, col_indices,
                            /*normalized=*/true);
   if (t < 0) { fprintf(stderr, "pagerank failed\n"); return 1; }

@@ -1,12 +1,12 @@
 """Multi-chip demo: the sharded zoo over a device mesh.
 
-Partitions one graph across every visible device (TPU chips over ICI in
-production; set the env below to demo on an 8-device virtual CPU mesh —
+Partitions one graph across every visible device (GPUs joined by NVLink
+in production; set the env below to demo on an 8-device virtual CPU mesh —
 the reference's ``--device=0,0`` fake-multi-GPU trick,
 ``CMakeLists.txt:389-421``), then runs sharded BFS / PageRank / CC and
 cross-checks each against its single-chip result.
 
-Run (no TPU pod needed):
+Run (no GPUs needed):
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
       python examples/sharded_example.py
@@ -19,8 +19,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import gunrock_tpu as gt
-from gunrock_tpu.parallel import bfs_sharded, cc_sharded, pagerank_sharded
+import gunrock_jax as gt
+from gunrock_jax.parallel import bfs_sharded, cc_sharded, pagerank_sharded
 
 
 def main():

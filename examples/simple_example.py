@@ -1,6 +1,6 @@
 """Composition demo: CC -> BFS -> BC on one graph.
 
-TPU rebuild of the reference's ``simple_example/simple_example.cu``
+JAX rebuild of the reference's ``simple_example/simple_example.cu``
 (1921 LoC of CUDA driver): find connected components, BFS from the
 largest-degree vertex of the largest component, then single-source BC
 from the same vertex — sharing one loaded graph across primitives.
@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import gunrock_tpu as gt
+import gunrock_jax as gt
 
 DEFAULT = "/root/reference/simple_example/bips98_606.mtx"
 

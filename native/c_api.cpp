@@ -1,16 +1,16 @@
-// C-ABI shim: embeds CPython and delegates to gunrock_tpu.capi.
+// C-ABI shim: embeds CPython and delegates to gunrock_jax.capi.
 //
 // The reference implements its C tier by dispatching into the CUDA apps
 // (app/*_app.cu behind gunrock/gunrock.h); here the engine is JAX, so
 // the natural native boundary is an embedded interpreter: one
 // Py_Initialize per process, zero-copy buffer handoff (pointer
-// addresses -> numpy views in gunrock_tpu/capi.py), results written
+// addresses -> numpy views in gunrock_jax/capi.py), results written
 // straight into the caller's arrays.
 //
 // Build (native.py get_capi_lib does this automatically):
-//   g++ -O2 -shared -fPIC -std=c++17 c_api.cpp -o libgunrock_tpu.so \
+//   g++ -O2 -shared -fPIC -std=c++17 c_api.cpp -o libgunrock_jax.so \
 //       -I$PY_INC -L$PY_LIBDIR -lpython3.12 \
-//       -DGRTPU_PYPATH='"repo:site-packages"'
+//       -DGRJAX_PYPATH='"repo:site-packages"'
 //
 // Works both from a plain C program (interpreter created on demand) and
 // when loaded into an existing Python process (GIL acquired instead).
@@ -20,10 +20,10 @@
 #include <cstdio>
 #include <cstring>
 
-#include "gunrock_tpu.h"
+#include "gunrock_jax.h"
 
-#ifndef GRTPU_PYPATH
-#define GRTPU_PYPATH ""
+#ifndef GRJAX_PYPATH
+#define GRJAX_PYPATH ""
 #endif
 
 namespace {
@@ -37,7 +37,7 @@ PyGILState_STATE ensure_python(bool* ok) {
     // interpreter does not inherit a venv's sys.path.
     PyRun_SimpleString(
         "import sys\n"
-        "for _p in \"" GRTPU_PYPATH "\".split(\":\"):\n"
+        "for _p in \"" GRJAX_PYPATH "\".split(\":\"):\n"
         "    if _p and _p not in sys.path:\n"
         "        sys.path.insert(0, _p)\n");
     // Release the GIL acquired by Py_InitializeEx: PyGILState_Release
@@ -50,14 +50,14 @@ PyGILState_STATE ensure_python(bool* ok) {
   return PyGILState_Ensure();
 }
 
-// Call gunrock_tpu.capi.<fn>(args...) where every arg is an integer
+// Call gunrock_jax.capi.<fn>(args...) where every arg is an integer
 // (pointer addresses / sizes / flags). Returns elapsed ms or negative.
 float call_capi(const char* fn, const long long* args, int nargs) {
   bool ok = false;
   PyGILState_STATE st = ensure_python(&ok);
   if (!ok) return -1.0f;
   float result = -1.0f;
-  PyObject* mod = PyImport_ImportModule("gunrock_tpu.capi");
+  PyObject* mod = PyImport_ImportModule("gunrock_jax.capi");
   if (mod) {
     PyObject* f = PyObject_GetAttrString(mod, fn);
     if (f) {
@@ -90,7 +90,7 @@ inline long long addr(const void* p) {
 
 extern "C" {
 
-float gunrock_tpu_bfs(int* bfs_label, int* bfs_pred, const int num_nodes,
+float gunrock_jax_bfs(int* bfs_label, int* bfs_pred, const int num_nodes,
                       const int num_edges, const int* row_offsets,
                       const int* col_indices, const int source,
                       const bool mark_predecessors,
@@ -101,7 +101,7 @@ float gunrock_tpu_bfs(int* bfs_label, int* bfs_pred, const int num_nodes,
   return call_capi("bfs_c", a, 9);
 }
 
-float gunrock_tpu_bc(float* bc_scores, const int num_nodes,
+float gunrock_jax_bc(float* bc_scores, const int num_nodes,
                      const int num_edges, const int* row_offsets,
                      const int* col_indices, const int source) {
   long long a[] = {addr(bc_scores), num_nodes, num_edges,
@@ -109,7 +109,7 @@ float gunrock_tpu_bc(float* bc_scores, const int num_nodes,
   return call_capi("bc_c", a, 6);
 }
 
-float gunrock_tpu_cc(int* component, int* num_components,
+float gunrock_jax_cc(int* component, int* num_components,
                      const int num_nodes, const int num_edges,
                      const int* row_offsets, const int* col_indices) {
   long long a[] = {addr(component), addr(num_components), num_nodes,
@@ -117,7 +117,7 @@ float gunrock_tpu_cc(int* component, int* num_components,
   return call_capi("cc_c", a, 6);
 }
 
-float gunrock_tpu_sssp(float* distances, int* preds, const int num_nodes,
+float gunrock_jax_sssp(float* distances, int* preds, const int num_nodes,
                        const int num_edges, const int* row_offsets,
                        const int* col_indices, const float* edge_values,
                        const int source, const bool mark_preds) {
@@ -127,7 +127,7 @@ float gunrock_tpu_sssp(float* distances, int* preds, const int num_nodes,
   return call_capi("sssp_c", a, 9);
 }
 
-float gunrock_tpu_pagerank(int* node_ids, float* pagerank,
+float gunrock_jax_pagerank(int* node_ids, float* pagerank,
                            const int num_nodes, const int num_edges,
                            const int* row_offsets, const int* col_indices,
                            const bool normalized) {

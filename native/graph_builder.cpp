@@ -1,9 +1,9 @@
 // Native host-side graph builder: COO -> CSR construction and Matrix
-// Market body parsing. TPU-native counterpart of the reference's
+// Market body parsing. Counterpart of the reference's
 // OpenMP-parallel host CSR build (gunrock/csr.cuh:534-697, sort at
 // util/sort_omp.cuh) and .mtx reader (gunrock/graphio/market.cuh:192).
 //
-// Exposed as a C ABI consumed via ctypes (gunrock_tpu/graph/native.py);
+// Exposed as a C ABI consumed via ctypes (gunrock_jax/graph/native.py);
 // the Python layer falls back to numpy when this library is unavailable.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC \

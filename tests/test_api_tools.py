@@ -6,8 +6,8 @@ import sys
 import numpy as np
 
 import conftest  # noqa: F401
-import gunrock_tpu as gt
-from gunrock_tpu import api
+import gunrock_jax as gt
+from gunrock_jax import api
 from oracles import cpu_bfs, cpu_sssp, cpu_cc
 
 sys.path.insert(0, os.path.join(
@@ -86,7 +86,7 @@ def test_info_has_gitsha(rmat_small):
 
 
 def test_modularity(chesapeake):
-    from gunrock_tpu.utils.modularity import modularity
+    from gunrock_jax.utils.modularity import modularity
     comp = gt.cc(chesapeake).components
     q1 = modularity(chesapeake, comp)          # one community: Q ~ 0
     assert abs(q1) < 1e-6

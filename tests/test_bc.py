@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import gunrock_tpu as gt
-from gunrock_tpu.models.bc import bc
+import gunrock_jax as gt
+from gunrock_jax.models.bc import bc
 from oracles import cpu_bc
 
 
@@ -48,27 +48,9 @@ def test_bc_deep_graph(road_like):
                                atol=1e-4)
 
 
-def test_bc_hybrid_pull_levels(rmat_small):
-    """The TPU path's hybrid dispatch (push small levels, blocked-kernel
-    pull for big ones) must match the oracle; exercised in pallas
-    interpret mode on CPU."""
-    import jax
-    import jax.numpy as jnp
-    from gunrock_tpu.enactor import capacity_ladder
-    from gunrock_tpu.models.bc import _bc_jit
-    dg = gt.to_device(rmat_small, with_blocked_values=True)
-    out = jax.block_until_ready(
-        _bc_jit(dg, jnp.int32(0), fcap=dg.v_pad,
-                caps=tuple(capacity_ladder(dg.e_pad)),
-                pallas=True, interpret=True))
-    got = np.asarray(out[0])[: rmat_small.num_nodes] * 0.5
-    np.testing.assert_allclose(got, cpu_bc(rmat_small, src=0),
-                               rtol=1e-3, atol=1e-4)
-
-
 def test_bc_instrumented_records_on_push_path(rmat_small):
-    """--instrumented must produce per-level records on every backend
-    (previously a silent no-op off-TPU — round-3 review finding)."""
+    """--instrumented must produce per-level records for both
+    Brandes phases."""
     res = bc(rmat_small, src=0, instrumented=True)
     recs = res.info["per_iteration"]
     assert recs, "no per-level records"
@@ -79,16 +61,14 @@ def test_bc_instrumented_records_on_push_path(rmat_small):
 
 
 def test_bc_hybrid_chunked_enactment(rmat_small):
-    """The TPU bench path (_bc_hybrid: host-chunked forward chunks ->
-    argsort -> backward chunks, hybrid push/pull dispatch) must match
-    the oracle; exercised in pallas interpret mode on CPU."""
-    from gunrock_tpu.enactor import capacity_ladder
-    from gunrock_tpu.models.bc import _bc_hybrid
+    """Host-chunked Brandes (_bc_hybrid: forward chunks -> argsort ->
+    backward chunks) must match the oracle."""
+    from gunrock_jax.enactor import capacity_ladder
+    from gunrock_jax.models.bc import _bc_hybrid
     import jax
-    dg = gt.to_device(rmat_small, with_blocked_values=True)
+    dg = gt.to_device(rmat_small)
     out = jax.block_until_ready(
-        _bc_hybrid(dg, 0, dg.v_pad, tuple(capacity_ladder(dg.e_pad)),
-                   pallas=True, interpret=True))
+        _bc_hybrid(dg, 0, dg.v_pad, tuple(capacity_ladder(dg.e_pad))))
     got = np.asarray(out[0])[: rmat_small.num_nodes] * 0.5
     np.testing.assert_allclose(got, cpu_bc(rmat_small, src=0),
                                rtol=1e-3, atol=1e-4)

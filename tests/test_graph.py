@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import gunrock_tpu as gt
+import gunrock_jax as gt
 
 
 def test_from_coo_dedup_selfloop():
@@ -114,14 +114,13 @@ def test_sizet64_offsets_oracle(rmat_small):
         code = (
             "import jax; jax.config.update('jax_platforms','cpu');"
             "import sys; sys.path.insert(0, %r);"
-            "import numpy as np, gunrock_tpu as gt;"
-            "from gunrock_tpu.utils.reference import cpu_bfs;"
-            "from gunrock_tpu.models.bfs import bfs_device;"
+            "import numpy as np, gunrock_jax as gt;"
+            "from gunrock_jax.utils.reference import cpu_bfs;"
+            "from gunrock_jax.models.bfs import bfs_device;"
             "g = gt.io.rmat(scale=9, edge_factor=6, seed=5, undirected=True);"
             "dg = gt.to_device(g, with_csc=True, sizet64=True);"
             "assert str(dg.row_offsets.dtype) == 'int64', dg.row_offsets.dtype;"
-            "lab, _, st = bfs_device(dg, 0, direction_optimized=True,"
-            " pallas_pull=False);"
+            "lab, _, st = bfs_device(dg, 0, direction_optimized=True);"
             "assert np.array_equal(np.asarray(lab)[:g.num_nodes],"
             " cpu_bfs(g, 0));"
             "print('OK')"
@@ -132,3 +131,31 @@ def test_sizet64_offsets_oracle(rmat_small):
     # sizet64 without x64 mode must fail loudly, not silently downcast
     with pytest.raises(ValueError, match="x64"):
         gt.to_device(rmat_small, sizet64=True)
+
+
+@pytest.mark.parametrize("n,m", [(1, 0), (127, 300), (128, 128),
+                                 (129, 1000), (9000, 20000)])
+def test_to_device_padding_shapes(n, m):
+    """Vertex and edge arrays pad to LANE multiples; padded rows repeat
+    the edge count (degree 0), padded edge slots point at vertex 0 and
+    their per-edge row ids carry the v_pad fill."""
+    from gunrock_jax.graph.device import LANE
+    rng = np.random.default_rng(n)
+    g = gt.from_coo(n, rng.integers(0, n, m), rng.integers(0, n, m))
+    dg = gt.to_device(g, with_csc=True, with_edge_values=True,
+                      with_edge_src=True)
+    assert dg.v_pad % LANE == 0 and dg.v_pad >= max(n, 1)
+    assert dg.e_pad % LANE == 0 and dg.e_pad >= max(g.num_edges, 1)
+    assert dg.v_pad - n < LANE and dg.e_pad - max(g.num_edges, 1) < LANE
+    row = np.asarray(dg.row_offsets)
+    assert row.shape == (dg.v_pad + 1,)
+    np.testing.assert_array_equal(row[:n + 1], g.row_offsets)
+    assert (row[n:] == g.num_edges).all()
+    col = np.asarray(dg.col_indices)
+    np.testing.assert_array_equal(col[:g.num_edges], g.col_indices)
+    assert (col[g.num_edges:] == 0).all()
+    esrc = np.asarray(dg.edge_src)
+    np.testing.assert_array_equal(esrc[:g.num_edges], g.edge_sources())
+    assert (esrc[g.num_edges:] == dg.v_pad).all()
+    assert (np.asarray(dg.csc_edge_dst)[g.num_edges:] == dg.v_pad).all()
+    assert (np.asarray(dg.edge_values)[g.num_edges:] == 0).all()

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import gunrock_tpu as gt
+import gunrock_jax as gt
 from oracles import cpu_hits
 
 
@@ -117,35 +117,11 @@ def test_sample_template(rmat_small):
     np.testing.assert_array_equal(labels, cpu_bfs(rmat_small, 0))
 
 
-def test_reverse_blocked_layout_matches_forward_reduce():
-    """hub-direction pull over the reverse blocked layout == the CSR
-    out-edge reduction (the reverse layout that gives HITS/SALSA their
-    fast kernel path on directed graphs)."""
-    import jax.numpy as jnp
-    from gunrock_tpu.models.hits import reverse_blocked
-    from gunrock_tpu.ops.pallas_kernels import pull_vertex_reduce
-    from gunrock_tpu.ops.segment import row_reduce_sorted
-    import gunrock_tpu as gt
-    g = gt.io.rmat(scale=9, edge_factor=6, seed=13, undirected=False)
-    dg = gt.to_device(g, with_csc=True)
-    rev = reverse_blocked(g)
-    rng = np.random.default_rng(0)
-    x = rng.random(dg.v_pad).astype(np.float32)
-    fast = pull_vertex_reduce(jnp.asarray(x), rev, op="sum",
-                              interpret=True)
-    # f64 edge-level oracle (the XLA cumsum-difference formulation loses
-    # f32 precision on long runs, so compare against exact sums)
-    oracle = np.zeros(g.num_nodes, np.float64)
-    np.add.at(oracle, g.edge_sources(), x[g.col_indices])
-    np.testing.assert_allclose(np.asarray(fast)[:g.num_nodes], oracle,
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_hits_raw_parity_mode(chesapeake):
     """Raw ping-pong mode reproduces the reference recurrence
     (hits_functor.cuh:91,165; NormalizeRank = swap+zero only)."""
-    import gunrock_tpu as gt
-    from gunrock_tpu.models.hits import hits_device
+    import gunrock_jax as gt
+    from gunrock_jax.models.hits import hits_device
 
     g = chesapeake
     dg = gt.to_device(g, with_csc=True, with_edge_src=True)

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 import conftest  # noqa: F401
-import gunrock_tpu as gt
-from gunrock_tpu.graph import native
+import gunrock_jax as gt
+from gunrock_jax.graph import native
 
 
 @pytest.fixture(scope="module")
@@ -16,9 +16,9 @@ def lib_available():
 
 def _fresh(monkeypatch, disable: bool):
     if disable:
-        monkeypatch.setenv("GUNROCK_TPU_NO_NATIVE", "1")
+        monkeypatch.setenv("GUNROCK_NO_NATIVE", "1")
     else:
-        monkeypatch.delenv("GUNROCK_TPU_NO_NATIVE", raising=False)
+        monkeypatch.delenv("GUNROCK_NO_NATIVE", raising=False)
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", False)
 

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-import gunrock_tpu as gt
-from gunrock_tpu.ops import (compact, dedup_winners, expand,
+import gunrock_jax as gt
+from gunrock_jax.ops import (compact, dedup_winners, expand,
                              frontier_from_mask, mask_from_frontier)
 
 
@@ -88,7 +88,7 @@ def test_pull_reduce_sum():
 
 def test_row_reduce_sorted_sum_min_max():
     import jax.numpy as jnp
-    from gunrock_tpu.ops.segment import row_reduce_sorted
+    from gunrock_jax.ops.segment import row_reduce_sorted
     # rows: [0,3) [3,3) [3,7) [7,8)  (row 1 empty)
     row = jnp.asarray([0, 3, 3, 7, 8], jnp.int32)
     vals = jnp.asarray([5, 2, 9, 1, 4, 4, 0, 7], jnp.float32)
@@ -105,8 +105,8 @@ def test_row_reduce_sorted_matches_segment_ops(rmat_small):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    import gunrock_tpu as gt
-    from gunrock_tpu.ops.segment import row_reduce_sorted
+    import gunrock_jax as gt
+    from gunrock_jax.ops.segment import row_reduce_sorted
     g = gt.to_device(rmat_small, with_csc=True)
     rng = np.random.default_rng(0)
     vals = jnp.asarray(rng.random(g.e_pad).astype(np.float32))
@@ -131,7 +131,7 @@ def test_expand_zero_outdegree_frontier_vertex():
     desynchronize rank/src (regression: rank markers skipped zero-degree
     segments, so f[rank] pointed one slot early)."""
     import jax.numpy as jnp
-    from gunrock_tpu.ops.advance import expand
+    from gunrock_jax.ops.advance import expand
     g = gt.from_coo(8, np.array([0, 0, 2]), np.array([3, 4, 5]),
                     undirected=False)
     dg = gt.to_device(g)
@@ -145,11 +145,10 @@ def test_expand_zero_outdegree_frontier_vertex():
 
 def test_expand_sorted_eid_monotone():
     """Sorted-mode expand must return a NONDECREASING eid stream across
-    masked lanes (tail pinned to the last edge): the Pallas samplers walk
-    the stream by chunk windows and a zeroed tail makes every valid lane
-    in the boundary tile read garbage (round-3 review finding)."""
+    masked lanes (tail pinned to the last edge): consumers gather it with
+    indices_are_sorted=True, which a zeroed tail would violate."""
     import jax.numpy as jnp
-    from gunrock_tpu.ops.advance import expand
+    from gunrock_jax.ops.advance import expand
     g = gt.io.rmat(scale=9, edge_factor=4, seed=3, undirected=True)
     dg = gt.to_device(g)
     fr = jnp.sort(jnp.array([3, 17, 200, 450] + [dg.v_pad - 1] * 60,

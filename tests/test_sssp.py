@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import gunrock_tpu as gt
-from gunrock_tpu.models.sssp import sssp
+import gunrock_jax as gt
+from gunrock_jax.models.sssp import sssp
 from oracles import cpu_sssp
 
 
@@ -64,7 +64,7 @@ def test_sssp_nearfar_matches_bellman(weighted_rmat):
 
 
 def test_sssp_chunked_enactment(weighted_rmat):
-    from gunrock_tpu.models.sssp import sssp_device
+    from gunrock_jax.models.sssp import sssp_device
     import jax
     dg = gt.to_device(weighted_rmat, with_edge_values=True)
     ref = jax.block_until_ready(sssp_device(dg, 3))
@@ -95,7 +95,7 @@ def test_sssp_deep_micro_queue_value_carry(road_big, monkeypatch):
     and relaxation still routes through _winner_minimize."""
     import dataclasses as _dc
     import jax
-    from gunrock_tpu.models.sssp import sssp_device
+    from gunrock_jax.models.sssp import sssp_device
     g = _dc.replace(road_big)
     g.random_edge_values(seed=11)
     want = cpu_sssp(g, 0)
@@ -124,40 +124,3 @@ def test_sssp_instrumented_phase_split(rmat_small):
     split = res.info["phase_ms"]
     assert set(split) == {r["phase"] for r in rec}
     assert sum(res.info["phase_iterations"].values()) == len(rec)
-
-
-def test_sssp_pull_sweeps_mode():
-    """mode='pull' (Gauss-Seidel sweeps driver) matches dijkstra on a
-    pull2-capable graph, including the multi-call continuation path."""
-    import os
-    import numpy as np
-    import gunrock_tpu as gt
-    from gunrock_tpu.models.sssp import sssp_device
-    from scipy.sparse import csr_matrix
-    from scipy.sparse.csgraph import dijkstra
-
-    rng = np.random.default_rng(21)
-    n, m = 8200, 80000
-    src = rng.integers(0, n, m)
-    dst = rng.integers(0, n, m)
-    g = gt.from_coo(n, src, dst, undirected=True)
-    g.random_edge_values(seed=3)
-    dg = gt.to_device(g, with_edge_values=True, with_blocked_values=True)
-    if not dg.has_pull2:
-        import pytest
-        pytest.skip("v_pad not pull2-capable")
-    os.environ["GUNROCK_SSSP_SWEEPS"] = "2"   # force continuation calls
-    try:
-        dist, _, stats = sssp_device(dg, 0, mode="pull")
-    finally:
-        del os.environ["GUNROCK_SSSP_SWEEPS"]
-    dist = np.asarray(dist)[:n]
-    es, ed, w = g.edge_sources(), g.col_indices, g.edge_values
-    order = np.lexsort((w, ed, es))
-    su, du, wu = es[order], ed[order], w[order]
-    keep = np.r_[True, (su[1:] != su[:-1]) | (du[1:] != du[:-1])]
-    mat = csr_matrix((wu[keep], (su[keep], du[keep])), shape=(n, n))
-    ref = dijkstra(mat, indices=0)
-    mask = np.isfinite(ref)
-    np.testing.assert_allclose(dist[mask], ref[mask], rtol=1e-5)
-    assert int(stats.iteration) >= 2

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-import gunrock_tpu as gt
-from gunrock_tpu.models.tc import tc
+import gunrock_jax as gt
+from gunrock_jax.models.tc import tc
 
 from oracles import cpu_bfs  # noqa: F401  (env setup via conftest)
-from gunrock_tpu.utils.reference import cpu_tc
+from gunrock_jax.utils.reference import cpu_tc
 
 
 def test_tc_triangle():

@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gunrock_tpu.graph.csr import CsrGraph            # noqa: E402
-from gunrock_tpu.io.market import load_market         # noqa: E402
+from gunrock_jax.graph.csr import CsrGraph            # noqa: E402
+from gunrock_jax.io.market import load_market         # noqa: E402
 
 
 def _load(path: str, undirected: bool) -> CsrGraph:

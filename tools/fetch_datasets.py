@@ -8,7 +8,7 @@ Makefiles (``dataset/large/*/Makefile`` + ``common.mk``: one
     python tools/fetch_datasets.py --synth road_usa   # offline stand-in
 
 Each dataset lands in ``<out>/<name>/<name>.mtx`` ready for
-``gunrock_tpu.io.load_market`` / the CLI's ``market:`` graph kind.
+``gunrock_jax.io.load_market`` / the CLI's ``market:`` graph kind.
 
 Offline environments (no egress): ``--synth`` writes a generator-backed
 stand-in with the real dataset's published V/E scale and family —
@@ -102,7 +102,7 @@ def synthesize(name: str, out_dir: str) -> str:
         os.path.abspath(__file__))))
     import math
 
-    from gunrock_tpu.io import generators
+    from gunrock_jax.io import generators
     _, family, v, e = DATASETS[name]
     dest = os.path.join(out_dir, name)
     os.makedirs(dest, exist_ok=True)
